@@ -1,18 +1,18 @@
-// pt_runtime — native host runtime for the TPU path tracer.
+// pt_runtime — native host runtime for the path tracer.
 //
 // The reference implements its host-side runtime (scene parsing, data
 // marshalling, acceleration-structure handling) in C++ (src/main_cli.cpp
 // scene loop, src/*_cu_helper.cpp, include/object.cpp AABB grouping, and the
-// vendored-but-unused tiny_obj_loader.h).  This library is the TPU
+// vendored-but-unused tiny_obj_loader.h).  This library is the
 // framework's native equivalent: one shared object exposing a C ABI consumed
 // from Python via ctypes (runtime/native.py), covering
 //   1. the E/V/F/R/M/S/T/G/L text-scene grammar (token-tolerant, matching
 //      the reference's `while(input >> t)` stray-token behavior),
 //   2. a tinyobj-compatible OBJ/MTL subset,
 //   3. a median-split BVH/cluster builder that reorders triangles into
-//      spatially coherent leaves for the TPU intersection kernels.
+//      spatially coherent leaves (data for a BVH traversal).
 //
-// Build: make -C csrc   (produces libpt_runtime.so)
+// Build: make -C csrc   (produces build/libpt_runtime.so)
 
 #include <cctype>
 #include <cfloat>

@@ -12,8 +12,8 @@ main.cpp:275-282,533-559).
 Quirk 10 fixed: the reference's saved "combined" PNG actually contained the
 PT image; ours really is the three-up frame.
 
-    python -m path_tracing_tpu.compare --input /root/reference/input.txt \
-        --iters 8 --width 64 --height 64 --out-dir /tmp/cmp
+    python -m path_tracing_tpu.compare --input scenes/cornell.txt \
+        --iters 8 --width 64 --height 64 --out-dir cmp_out
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ import time
 
 import numpy as np
 
+from .scene import scene_path
+
 
 def rms_8bit(a_u8: np.ndarray, b_u8: np.ndarray) -> float:
     """Frame-to-frame RMS on 8-bit frames, as main.cpp:502-528 computes it."""
@@ -33,7 +35,7 @@ def rms_8bit(a_u8: np.ndarray, b_u8: np.ndarray) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="path_tracing_tpu.compare")
-    ap.add_argument("--input", default="/root/reference/input.txt")
+    ap.add_argument("--input", default=scene_path("cornell.txt"))
     ap.add_argument("--iters", type=int, default=4)
     ap.add_argument("--spp", type=int, default=2)
     ap.add_argument("--spl", type=int, default=4)

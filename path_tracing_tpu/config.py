@@ -32,22 +32,6 @@ class RenderConfig:
     # subsampling of N events per cell, contributions scaled by count/N —
     # same expectation, bounded work in photon-dense cells
     ppm_cell_samples: int = 0
-    # grid cap for the Pallas cell-blocked gather (ops/pallas_ppm_gather):
-    # max occupied hitpoint cells covered per pass; hitpoints beyond it are
-    # dropped and reported via the overflow count (512^2 input.txt occupies
-    # ~5.5k cells)
-    ppm_max_cells: int = 16384
-    # static cap on SORTED photon events kept for the Pallas gather, as a
-    # fraction of the raw (max_light_iters x photons) event tensor.  Invalid
-    # rows (dead / delta / non-depositable bounces — ~70% of the tensor in
-    # input.txt) sort to the end, so slicing the argsort order compacts for
-    # free and the HBM-heavy row-gather + field-major transpose run at the
-    # capped size (13x faster pack at 0.5).  1.0 (default) keeps the gather
-    # EXACT for any scene; lower it only when the overflow counter confirms
-    # the scene's validity fraction leaves headroom — valid events past the
-    # cap are dropped (a spatially structured loss: the highest cell keys
-    # go dark) and counted in the returned overflow.
-    ppm_event_cap_frac: float = 1.0
     # 0 = connect every eye vertex to EVERY light vertex (reference
     # semantics, bdpt_cu.cu:384); N > 0 = unbiased stratified subsample of N
     # light vertices per eye vertex, scaled by n_valid/N — same expectation,

@@ -1,6 +1,6 @@
 """Bidirectional path tracing with balance-heuristic MIS.
 
-TPU re-architecture of the reference's two CUDA megakernels
+Batched re-architecture of the reference's two CUDA megakernels
 (``cuda_light_trace`` bdpt_cu.cu:15-201, ``cuda_eye_trace_and_connect``
 :289-536, ``calculate_mis_weight`` :204-284) and of the CPU oracle
 (``cpu_bdpt.cpp:173-488``).  One implementation serves both: the GPU-parity
@@ -66,8 +66,7 @@ import jax.numpy as jnp
 from ..config import RenderConfig
 from ..ops import rng
 from ..ops.bsdf import bsdf_evaluate, bsdf_pdf, bsdf_sample
-from ..ops.intersect import (find_closest_hit, shadow_factor,
-                             vmem_tris_ok)
+from ..ops.intersect import find_closest_hit, shadow_factor
 from ..ops.math3 import (EPSILON, PI, clamp_radiance, dot, is_valid_color,
                          normalize)
 from ..ops.sampling import sample_light_emission
@@ -76,18 +75,6 @@ from ..scene.types import Camera, Material, Scene
 
 PDF_FWD_FLOOR = 1e-8   # fmaxf clamp in both MIS walks (cpu_bdpt.cpp:145,155,160)
 PDF_OMEGA_FLOOR = 1e-6  # fmaxf on connection pdfs (cpu_bdpt.cpp:133-134)
-
-
-def _use_bdpt_megakernel() -> bool:
-    """Persistent BDPT eye megakernel on TPU (PT_TPU_NO_BDPT_MEGAKERNEL=1
-    falls back to the scan + per-bounce connection kernel for A/B)."""
-    import os
-
-    if (os.environ.get("PT_TPU_NO_BDPT_MEGAKERNEL")
-            or os.environ.get("PT_TPU_NO_PALLAS")):
-        return False
-    from ..ops.pallas_intersect import interp_forced
-    return jax.default_backend() == "tpu" or interp_forced()
 
 
 def _register(cls):
@@ -204,8 +191,7 @@ def trace_light_paths(scene: Scene, cfg: RenderConfig, num_paths: int,
         k = rng.iter_key(jax.random.fold_in(key, 0x11F7), it)
         u = rng.uniforms_g(k, P, 3, start, total)
         lv = state["lv"]
-        hit = find_closest_hit(scene, state["ro"], state["rd"],
-                               live=state["alive"])
+        hit = find_closest_hit(scene, state["ro"], state["rd"])
         act = state["alive"] & hit.hit
         slot = state["slot"]
 
@@ -337,17 +323,9 @@ def compact_flat(lv_flat: LightVertices):
         jnp.sum(lv_flat.valid.astype(jnp.int32))
 
 
-def _ris_defensive_weight() -> float:
-    """Uniform-mixture weight of the RIS proposal (trace-time A/B knob,
-    round 4).  0.5 is the shipped default; smaller values bet harder on
-    the importance half (lower noise per draw where the heuristic is
-    right, heavier tails where it is wrong).  Unbiasedness holds for any
-    value in (0, 1] because the RIS weight divides by the exact mixture
-    p; the c5noise bench (0.1%-trimmed estimator) decides the default."""
-    import os
-
-    dw = float(os.environ.get("PT_TPU_RIS_DEFENSIVE", "0.5"))
-    return min(max(dw, 0.01), 1.0)
+# uniform-mixture weight of the RIS proposal: unbiased for any value in
+# (0, 1] because the RIS weight divides by the exact mixture p
+RIS_DEFENSIVE_WEIGHT = 0.5
 
 
 def resample_light_vertices(lv_flat: LightVertices, n_valid, K: int, key):
@@ -358,8 +336,7 @@ def resample_light_vertices(lv_flat: LightVertices, n_valid, K: int, key):
     lum(throughput_i)/sum lum`` (defensive uniform mixture keeps every
     potentially contributing vertex in the support) and bake the RIS weight
     ``1/(K * p_i)`` into the resampled throughput — connection contributions
-    are linear in it, so every downstream consumer (XLA sweep, fused
-    connection kernel, eye megakernel) is automatically an unbiased
+    are linear in it, so the connection sweep is automatically an unbiased
     estimator of the exact O(V) sweep at O(K) cost.  This is the
     scaling answer to the reference's all-pairs loop (bdpt_cu.cu:384-457)
     once V >> K; ``cfg.bdpt_resample_vertices`` opts in.
@@ -384,7 +361,7 @@ def resample_light_vertices(lv_flat: LightVertices, n_valid, K: int, key):
     # where any support is unbiased because the estimate is zero).
     nc = jnp.sum(contrib.astype(jnp.int32))
     has = nc > 0
-    dw = _ris_defensive_weight()
+    dw = RIS_DEFENSIVE_WEIGHT
     base = jnp.where(has, jnp.where(contrib, dw / jnp.maximum(nc, 1), 0.0),
                      jnp.where(in_prefix, 1.0 / nv, 0.0))
     p = base + jnp.where(wsum > 0.0,
@@ -398,106 +375,6 @@ def resample_light_vertices(lv_flat: LightVertices, n_valid, K: int, key):
     out = dataclasses.replace(
         out, throughput=out.throughput * scale[:, None])
     return out, jnp.asarray(K, jnp.int32)
-
-
-def tile_ris_enabled() -> bool:
-    """Tile-local RIS for the BDPT eye megakernel (PT_TPU_TILE_RIS=0
-    reverts to one global table).  Round-3 bisect: the per-connection
-    shadow sweep is ~79% of config5 and scales linearly with K, so the
-    win comes from matching the proposal to each tile (distance +
-    orientation to the tile's primary footprint), which holds image noise
-    at a smaller K than one global table needs."""
-    import os
-
-    return os.environ.get("PT_TPU_TILE_RIS", "1") != "0"
-
-
-def tile_representatives(scene: Scene, cam: Camera, px, py,
-                         lanes_per_tile: int, n_tiles: int) -> jnp.ndarray:
-    """(T, 3) representative point per eye-megakernel tile: the tile's
-    center pixel's primary ray exits the scene AABB (closed scenes: the
-    far wall through that pixel — near-exact for the bounce-0 eye
-    vertices that dominate connections).  Only an importance heuristic;
-    unbiasedness never depends on it."""
-    B = px.shape[0]
-    mid = jnp.clip(jnp.arange(n_tiles) * lanes_per_tile
-                   + lanes_per_tile // 2, 0, B - 1)
-    h = jnp.full((n_tiles,), 0.5)
-    rd = primary_ray_dirs(cam, px[mid], py[mid], h, h)          # (T, 3)
-    eye = jnp.broadcast_to(cam.eye, rd.shape)
-    safe = jnp.where(jnp.abs(rd) < 1e-12,
-                     jnp.where(rd >= 0.0, 1e-12, -1e-12), rd)
-    t0 = (scene.scene_min[None] - eye) / safe
-    t1 = (scene.scene_max[None] - eye) / safe
-    t_exit = jnp.min(jnp.maximum(t0, t1), axis=-1)
-    t_exit = jnp.maximum(t_exit, 1e-3)
-    return eye + rd * (0.95 * t_exit)[:, None]
-
-
-def resample_light_vertices_tiled(lv_flat: LightVertices, n_valid, K: int,
-                                  key, reps: jnp.ndarray):
-    """Per-TILE importance resampling of the light-vertex table (unbiased,
-    like ``resample_light_vertices``, with per-tile proposals).
-
-    For tile t with representative point ``reps[t]`` the weights are
-    ``lum_i * max(cos_i, 0.05) / max(dist2_i, r2min)`` — the geometric
-    shape of the connection integrand toward that tile — mixed 50/50 with
-    a uniform over the contributing rows.  K iid stratified draws per
-    tile; the RIS weight ``1/(K p_ti)`` is baked into the throughput, so
-    every tile's connection sum stays an unbiased estimator of the exact
-    O(V) sweep.  Rows are padded per tile to a multiple of 8 with invalid
-    entries (the kernels' v_ok gate skips them).
-
-    Returns (flat LightVertices with leaves shaped (T*Kp, ...), Kp).
-    """
-    T = reps.shape[0]
-    V = lv_flat.pos.shape[0]
-    in_prefix = jnp.arange(V) < n_valid
-    lum = jnp.sum(lv_flat.throughput
-                  * jnp.asarray([0.2126, 0.7152, 0.0722]), axis=-1)
-    contrib = (in_prefix & lv_flat.valid & (lum > 0.0)
-               & jnp.isfinite(lum))
-    nc = jnp.sum(contrib.astype(jnp.int32))
-    has = nc > 0
-    nv = jnp.maximum(n_valid, 1)
-
-    d = reps[:, None, :] - lv_flat.pos[None, :, :]              # (T, V, 3)
-    dist2 = jnp.sum(d * d, axis=-1)
-    dist = jnp.sqrt(jnp.maximum(dist2, 1e-12))
-    cos_l = jnp.sum(lv_flat.normal[None] * d, axis=-1) / dist
-    # light sources emit forward (f_l = 1, cone handled in-kernel); keep a
-    # floor so badly-oriented vertices stay drawable (variance, not bias)
-    geom = jnp.maximum(cos_l, 0.05) / jnp.maximum(dist2, 1e-4)
-    w = jnp.where(contrib[None], lum[None] * geom, 0.0)         # (T, V)
-    wsum = jnp.sum(w, axis=1, keepdims=True)
-    dw = _ris_defensive_weight()
-    base = jnp.where(has,
-                     jnp.where(contrib, dw / jnp.maximum(nc, 1), 0.0),
-                     jnp.where(in_prefix, 1.0 / nv, 0.0))[None]
-    p = base + jnp.where(wsum > 0.0,
-                         (1.0 - dw) * w / jnp.maximum(wsum, 1e-30), 0.0)
-    cdf = jnp.cumsum(p, axis=1)                                  # (T, V)
-    u = (jnp.arange(K)[None] + jax.random.uniform(key, (T, K))) / K
-    tgt = u * cdf[:, -1:]
-    idx = jax.vmap(lambda c, t: jnp.searchsorted(c, t, side="right"))(
-        cdf, tgt)
-    idx = jnp.clip(idx, 0, V - 1)                                # (T, K)
-    p_sel = jnp.take_along_axis(p, idx, axis=1)
-    scale = 1.0 / (K * jnp.maximum(p_sel, 1e-30))                # (T, K)
-
-    Kp = -(-K // 8) * 8
-    pad = Kp - K
-    if pad:
-        idx = jnp.concatenate(
-            [idx, jnp.zeros((T, pad), idx.dtype)], axis=1)
-        scale = jnp.concatenate([scale, jnp.zeros((T, pad))], axis=1)
-    flat_idx = idx.reshape(-1)
-    out = jax.tree.map(lambda x: x[flat_idx], lv_flat)
-    sc = scale.reshape(-1)
-    valid = out.valid & (sc > 0.0)
-    out = dataclasses.replace(
-        out, throughput=out.throughput * sc[:, None], valid=valid)
-    return out, Kp
 
 
 def _connect(scene: Scene, cfg: RenderConfig, lv_flat: LightVertices,
@@ -518,6 +395,9 @@ def _connect(scene: Scene, cfg: RenderConfig, lv_flat: LightVertices,
 
     B = ev_pos.shape[0]
     V = lv_flat.pos.shape[0]
+    # a table smaller than one chunk (e.g. a K-row RIS table) is swept in
+    # one chunk of its own size, not padded out to ``chunk`` dead rows
+    chunk = max(1, min(chunk, V))
     pad = (-V) % chunk
     lvp = jax.tree.map(
         lambda x: jnp.concatenate(
@@ -611,7 +491,6 @@ def _connect(scene: Scene, cfg: RenderConfig, lv_flat: LightVertices,
         trans = shadow_factor(
             scene, p1, p2,
             dielectrics_block=cfg.shadow_dielectrics_block,
-            live=gate.reshape(-1),
         ).reshape(B, chunk, 3)
         gate &= jnp.any(trans > 0.0, axis=-1)
 
@@ -760,8 +639,8 @@ def _connect_sampled_chunk(scene, cfg, lv_flat, ev_pos, ev_normal, ev_tp,
                           (B, M, 3)).reshape(-1, 3)
     p2 = (lvg.pos + lvg.normal * EPSILON).reshape(-1, 3)
     trans = shadow_factor(scene, p1, p2,
-                          dielectrics_block=cfg.shadow_dielectrics_block,
-                          live=gate.reshape(-1)).reshape(B, M, 3)
+                          dielectrics_block=cfg.shadow_dielectrics_block
+                          ).reshape(B, M, 3)
     gate &= jnp.any(trans > 0.0, axis=-1)
 
     g_term = cos_e * cos_l / jnp.maximum(dist2, 1e-4)
@@ -792,15 +671,6 @@ def eye_trace_and_connect(scene: Scene, cam: Camera, cfg: RenderConfig,
     ``start``/``total``: global-lane RNG for sharded bit-exactness (see
     ``wavefront_pt``); defaults reproduce the unsharded draws exactly.
     """
-    import os
-
-    def _use_fused_connect():
-        if os.environ.get("PT_TPU_NO_FUSED_CONNECT") or os.environ.get(
-                "PT_TPU_NO_PALLAS"):
-            return False
-        from ..ops.pallas_intersect import interp_forced
-        return jax.default_backend() == "tpu" or interp_forced()
-
     B = px.shape[0]
     # lv_flat arrives pre-compacted (eye_pass hoists the O(V log V) argsort
     # out of the per-spp scan); the RIS re-draw stays per-sample
@@ -808,15 +678,6 @@ def eye_trace_and_connect(scene: Scene, cam: Camera, cfg: RenderConfig,
         lv_flat, n_valid = resample_light_vertices(
             lv_flat, n_valid, cfg.bdpt_resample_vertices,
             jax.random.fold_in(key, 0x5E5A))
-    fused_connect = (_use_fused_connect()
-                     and cfg.bdpt_connection_samples == 0
-                     and not scene.has_textures
-                     and not scene.has_legacy_ks
-                     and vmem_tris_ok(scene))
-    if fused_connect:
-        from ..ops.pallas_connect import connect_pallas, pack_light_vertices
-
-        lv_tab = pack_light_vertices(lv_flat)
     jx, jy = rng.uniforms_g(jax.random.fold_in(key, 0xA11CE), B, 2,
                             start, total)
     rd0 = primary_ray_dirs(cam, px, py, jx, jy)
@@ -837,8 +698,7 @@ def eye_trace_and_connect(scene: Scene, cam: Camera, cfg: RenderConfig,
     def body(state, it):
         k = rng.iter_key(jax.random.fold_in(key, 0xE7E), it)
         u = rng.uniforms_g(k, B, 3, start, total)
-        hit = find_closest_hit(scene, state["ro"], state["rd"],
-                               live=state["alive"])
+        hit = find_closest_hit(scene, state["ro"], state["rd"])
         act = state["alive"] & hit.hit
         depth = state["depth"]
 
@@ -857,13 +717,7 @@ def eye_trace_and_connect(scene: Scene, cam: Camera, cfg: RenderConfig,
         eye_f = jnp.where(
             (depth == 0) | (hit.mtl.eta > 0.0), 0.0,
             (1.0 / PDF_FWD_FLOOR) * (1.0 + state["g_mis"]))
-        if fused_connect:
-            total_c = connect_pallas(
-                scene, lv_tab, n_valid, hit.pos, hit.normal, state["tp"],
-                hit.mtl, wo_e, wo_s, eye_f, act,
-                clamp_val=cfg.clamp,
-                dielectrics_block=cfg.shadow_dielectrics_block)
-        elif cfg.bdpt_connection_samples > 0:
+        if cfg.bdpt_connection_samples > 0:
             total_c = _connect_sampled(
                 scene, cfg, lv_flat, n_valid, hit.pos, hit.normal,
                 state["tp"], hit.mtl, wo_e, wo_s, eye_f, k, start, total)
@@ -977,67 +831,20 @@ def render_bdpt(scene: Scene, cam: Camera, width: int, height: int, spp: int,
     lv = trace_light_paths(scene_used, cfg, num_paths, spl,
                            jax.random.fold_in(key, 0x0101))
     return eye_pass(scene_used, lv, cam, cfg, px, py, spp, key,
-                    light_hit_scale, chunk, oracle=oracle)
+                    light_hit_scale, chunk)
 
 
 def eye_pass(scene_used: Scene, lv, cam: Camera, cfg: RenderConfig,
              px, py, spp: int, key, light_hit_scale: float,
-             chunk: int = 128, oracle: bool = False,
-             start=0, total: int | None = None) -> jnp.ndarray:
+             chunk: int = 128, start=0,
+             total: int | None = None) -> jnp.ndarray:
     """Mean-over-spp eye trace + connect against a (possibly all-gathered)
-    light-vertex tensor — the tier dispatch shared by ``render_bdpt`` and
-    ``parallel.shard.render_bdpt_sharded`` so multi-chip BDPT rides the
-    same persistent eye megakernel as single-chip.
+    light-vertex tensor, shared by ``render_bdpt`` and
+    ``parallel.shard.render_bdpt_sharded``.
 
     ``start``/``total``: global-lane RNG so a sharded eye pass draws the
-    exact bits of the matching single-device lane slice (XLA tier); the
-    megakernel tier decorrelates shards via a start-folded seed instead."""
+    exact bits of the matching single-device lane slice."""
     B = px.shape[0]
-    if (_use_bdpt_megakernel() and not oracle
-            and cfg.bdpt_connection_samples == 0
-            and not scene_used.has_textures
-            and not scene_used.has_legacy_ks and vmem_tris_ok(scene_used)):
-        # oracle mode is excluded: its contract is bit-identical renders on
-        # ANY backend, and the megakernel's pltpu PRNG stream differs from
-        # the XLA Threefry stream
-        # persistent eye megakernel: the whole spp loop in one pallas_call
-        from ..ops.pallas_bdpt_eye import bdpt_eye_pallas, eye_tiling
-        from ..ops.pallas_connect import pack_light_vertices
-
-        lv_flat, n_valid = compact_flat(lv.flat())
-        if cfg.bdpt_resample_vertices > 0 and tile_ris_enabled():
-            # tile-local RIS: one Kp-row table per megakernel tile.
-            # Sharded (total set): fold the shard offset into the RIS key —
-            # each shard's tiles cover DIFFERENT pixels, so sharing the
-            # stratified draws across shards would correlate tile choices
-            # between screen strips (review r5).  The global-RIS and CPU
-            # paths stay shard-invariant on purpose: their ONE resampled
-            # table is shared by all shards exactly like single-device.
-            kris = jax.random.fold_in(key, 0x5E5A)
-            if total is not None:
-                kris = jax.random.fold_in(kris, start)
-            T, lanes = eye_tiling(B)
-            reps = tile_representatives(scene_used, cam, px, py, lanes, T)
-            lv_flat, Kp = resample_light_vertices_tiled(
-                lv_flat, n_valid, cfg.bdpt_resample_vertices, kris, reps)
-            lv_tab = pack_light_vertices(lv_flat).reshape(T, Kp, -1)
-            n_valid = jnp.asarray(Kp, jnp.int32)
-        elif cfg.bdpt_resample_vertices > 0:
-            lv_flat, n_valid = resample_light_vertices(
-                lv_flat, n_valid, cfg.bdpt_resample_vertices,
-                jax.random.fold_in(key, 0x5E5A))
-            lv_tab = pack_light_vertices(lv_flat)
-        else:
-            lv_tab = pack_light_vertices(lv_flat)
-        kseed = jax.random.fold_in(key, 0x0202)
-        if total is not None:
-            kseed = jax.random.fold_in(kseed, start)
-        seed = jax.random.randint(
-            kseed, (), 0, jnp.iinfo(jnp.int32).max, dtype=jnp.int32)
-        acc = bdpt_eye_pallas(scene_used, lv_tab, n_valid, cam, px, py,
-                              spp, cfg, seed, light_hit_scale)
-        return acc / spp
-
     # hoist the O(V log V) compaction out of the per-spp scan (the vertex
     # set is sample-invariant; only the RIS re-draw is per-sample)
     lv_flat, n_valid = compact_flat(lv.flat())

@@ -1,13 +1,13 @@
 """Progressive photon mapping (fixed-radius) with a sort-based photon grid.
 
-TPU re-architecture of the reference's four CUDA kernels (ppm_cu.cu):
+Batched re-architecture of the reference's four CUDA kernels (ppm_cu.cu):
 ``ppm_eye_trace`` (:64-150), ``reset/build_hash_grid`` (:40-58),
 ``ppm_photon_trace`` (:156-295), ``ppm_resolve_image`` (:300-322).
 
 The reference builds a linked-list-in-arrays spatial hash over *hitpoints*
 with ``atomicExch`` head insertion, then each photon walks 27 neighbor cells
-and ``atomicAdd``s flux into hitpoints.  Linked lists and atomics don't map
-to the TPU; instead we invert the join deterministically:
+and ``atomicAdd``s flux into hitpoints.  Here the join is inverted into a
+deterministic sort-and-gather instead:
 
 1. photon tracing *records* every deposit event (position, surface normal,
    incoming direction, flux) into a fixed-shape ``(P, iters)`` tensor,
@@ -84,21 +84,6 @@ class PhotonEvents:
     valid: jnp.ndarray    # (E,)
 
 
-def _use_gather_kernel() -> bool:
-    """TPU default: the exact cell-blocked Pallas gather
-    (ops/pallas_ppm_gather).  ``PT_TPU_NO_PALLAS=1`` or
-    ``PT_TPU_NO_PPM_KERNEL=1`` force the XLA hash-grid path below (which
-    also reproduces the reference hash's in-neighborhood collision
-    double-counts — the kernel's collision-free lexicographic keys do not)."""
-    import os
-
-    from ..ops.pallas_intersect import interp_forced
-    if os.environ.get("PT_TPU_NO_PALLAS") or os.environ.get(
-            "PT_TPU_NO_PPM_KERNEL"):
-        return False
-    return jax.default_backend() == "tpu" or interp_forced()
-
-
 def hash_cell(ix, iy, iz, table_size: int):
     """ppm_cu.cu:27-30 with C int32 wraparound then unsigned modulo."""
     h = (ix * jnp.int32(73856093)) ^ (iy * jnp.int32(19349663)) \
@@ -144,8 +129,7 @@ def ppm_eye_trace(scene: Scene, cam: Camera, cfg: RenderConfig, px, py, key,
     def body(state, it):
         k = rng.iter_key(jax.random.fold_in(key, 0x9E2), it)
         u = rng.uniforms_g(k, B, 3, start, total)
-        hit = find_closest_hit(scene, state["ro"], state["rd"],
-                               live=state["alive"])
+        hit = find_closest_hit(scene, state["ro"], state["rd"])
         act = state["alive"] & hit.hit
         wo = -state["rd"]
 
@@ -222,22 +206,6 @@ def ppm_photon_trace(scene: Scene, cfg: RenderConfig, num_photons: int,
     flux0 = scene.light_illum[li] * (float(nl) / max(float(spl), 1.0))
     iters = cfg.max_light_iters
 
-    from ..ops.pallas_photon import photon_mega_enabled, photon_trace_pallas
-
-    if photon_mega_enabled(scene):
-        # persistent megakernel: the whole bounce loop in one pallas_call
-        # (round-4 attribution: the XLA scan's full-width HBM round trips
-        # were ~half the non-gather cost of a pass).  Emission sampling
-        # stays Threefry above; the bounce RNG is the on-core stream.
-        kmega = jax.random.fold_in(key, 0x408)
-        if total is not None:
-            # on-core PRNG: shards get decorrelated (not bit-equal) streams
-            kmega = jax.random.fold_in(kmega, start)
-        pos, normal, wi, fl, valid = photon_trace_pallas(
-            scene, cfg, emit.origin, emit.direction, flux0, real, kmega)
-        return PhotonEvents(pos=pos, normal=normal, wi=wi, flux=fl,
-                            valid=valid)
-
     state = dict(ro=emit.origin, rd=emit.direction, flux=flux0,
                  eta=jnp.ones((P,)), depth=jnp.zeros((P,), jnp.int32),
                  alive=real)
@@ -245,8 +213,7 @@ def ppm_photon_trace(scene: Scene, cfg: RenderConfig, num_photons: int,
     def body(state, it):
         k = rng.iter_key(jax.random.fold_in(key, 0x408), it)
         u = rng.uniforms_g(k, P, 3, start, total)
-        hit = find_closest_hit(scene, state["ro"], state["rd"],
-                               live=state["alive"])
+        hit = find_closest_hit(scene, state["ro"], state["rd"])
         act = state["alive"] & hit.hit & ~hit.is_light \
             & (state["depth"] < cfg.light_depth)
 
@@ -301,7 +268,8 @@ def gather_flux(scene: Scene, cfg: RenderConfig, hp: HitPoints,
 
     Returns (accum_flux (B,3), photon_count (B,), overflow (,)) where
     ``overflow`` counts candidate events dropped by the per-cell budget —
-    0 means the gather was exact.
+    0 means the gather was exact.  It is a float32 sum: a dense pass drops
+    more than 2^31 candidates, which an int32 count would wrap.
     """
     # radius may shrink progressively (r2_scale <= 1) while the grid cell
     # stays at r0, so the 27-cell neighborhood always covers the search ball
@@ -337,10 +305,10 @@ def gather_flux(scene: Scene, cfg: RenderConfig, hp: HitPoints,
     if M > 0:
         # unbiased stratified subsample: stride through each cell's events
         # and scale by count/M (exact when count <= M)
-        overflow = jnp.zeros((), jnp.int32)
+        overflow = jnp.zeros((), jnp.float32)
         kmax = jnp.minimum(jnp.max(counts_q), M)
     else:
-        overflow = jnp.sum(jnp.maximum(counts_q - K, 0))
+        overflow = jnp.sum(jnp.maximum(counts_q - K, 0), dtype=jnp.float32)
         # dynamic bound: iterate only to the true max cell occupancy (<= K)
         kmax = jnp.minimum(jnp.max(counts_q), K)
 
@@ -402,34 +370,6 @@ def gather_flux(scene: Scene, cfg: RenderConfig, hp: HitPoints,
     return flux, count, overflow
 
 
-def gather_flux_dispatch(scene: Scene, cfg: RenderConfig, hp: HitPoints,
-                         events: PhotonEvents, r2_scale=1.0):
-    """Tier dispatch for the photon gather: the exact cell-blocked Pallas
-    join on TPU (or under ``PT_TPU_INTERPRET``), the XLA hash-grid path
-    otherwise.  Shared by ``render_ppm_with_stats`` and the sharded renderer
-    so multi-chip PPM rides the same kernel as single-chip."""
-    import os
-
-    if os.environ.get("PT_TPU_PPM_NEUTER") == "gather":
-        # timing bisect ONLY (flux is wrong): skip the gather entirely —
-        # what remains is eye trace + photon trace + event production,
-        # cleanly splitting config4's cycles between the trace phases and
-        # the gather kernel (the in-kernel 'pairs'/'windows' neuters keep
-        # the gather's own DMA/loop machinery and cannot see this split)
-        B = hp.pos.shape[0]
-        # anchor every event field so XLA cannot DCE the photon trace
-        anchor = (jnp.sum(events.flux) + jnp.sum(events.pos)
-                  + jnp.sum(events.wi) + jnp.sum(events.normal)
-                  + jnp.sum(events.valid)) * 0.0
-        anchor = jnp.where(jnp.isnan(anchor), 0.0, anchor)
-        return (jnp.zeros((B, 3)) + anchor, jnp.zeros((B,), jnp.int32),
-                jnp.zeros((), jnp.int32))
-    if _use_gather_kernel():
-        from ..ops.pallas_ppm_gather import gather_flux_pallas
-        return gather_flux_pallas(scene, cfg, hp, events, r2_scale)
-    return gather_flux(scene, cfg, hp, events, r2_scale)
-
-
 @partial(jax.jit, static_argnames=("width", "height", "spl", "cfg"))
 def render_ppm_with_stats(scene: Scene, cam: Camera, width: int, height: int,
                           spl: int, cfg: RenderConfig, key, r2_scale=1.0):
@@ -450,8 +390,7 @@ def render_ppm_with_stats(scene: Scene, cam: Camera, width: int, height: int,
     num_photons = scene.num_lights * spl
     events = ppm_photon_trace(scene, cfg, num_photons, spl,
                               jax.random.fold_in(key, 2))
-    flux, count, overflow = gather_flux_dispatch(scene, cfg, hp, events,
-                                                 r2_scale)
+    flux, count, overflow = gather_flux(scene, cfg, hp, events, r2_scale)
 
     radiance = flux / jnp.maximum(
         PI * cfg.ppm_radius * cfg.ppm_radius * r2_scale, 1e-6)

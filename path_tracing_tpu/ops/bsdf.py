@@ -4,8 +4,8 @@ Batched, branch-free (mask-selected) re-architecture of the reference's
 ``bsdf_evaluate`` (geometric.cuh:419-456), ``bsdf_pdf`` (:458-484) and
 ``bsdf_sample`` (:486-562).  Every lane evaluates all three sampling branches
 (smooth dielectric, smooth conductor, rough mix) and selects with ``where`` —
-the idiomatic way to keep XLA fusing on the VPU instead of diverging like the
-CUDA megakernels do.
+the idiomatic way to keep XLA fusing elementwise work instead of diverging
+like the CUDA megakernels do.
 
 Semantic notes preserved from the reference (these matter for RMSE parity):
 - smooth dielectrics (eta>0, roughness<0.001) have zero eval/pdf (delta),

@@ -2,15 +2,11 @@
 
 The reference has no GPU acceleration structure at all (its AABB groups are
 CPU-only culling, SURVEY.md quirk 1); at mesh scale (BASELINE config 3) the
-brute-force sweep is O(N) per ray.  A pointer-chasing BVH does not map to
-the TPU's SIMD lanes, so we use the TPU-native middle ground:
-
-- triangles are reordered into spatially coherent clusters of ``leaf_size``
-  (median splits on the widest centroid axis — a BVH cut at fixed depth),
-- the Pallas intersection kernels test each cluster's AABB against the whole
-  ray tile first and skip the cluster's triangles when no lane can hit it
-  (tile-level culling: rays in a tile are image-coherent for primary/shadow
-  bounces, so most clusters are skipped by most tiles).
+brute-force sweep is O(N) per ray.  Triangles are reordered into spatially
+coherent clusters of ``leaf_size`` (median splits on the widest centroid
+axis — a BVH cut at fixed depth), each with its AABB: the data a BVH
+traversal reads.  The intersection is still brute force; nothing reads the
+clusters yet.
 
 The builder prefers the native C++ implementation (csrc/pt_runtime.cc) and
 falls back to this pure-numpy equivalent; both produce identical layouts.

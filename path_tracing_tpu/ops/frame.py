@@ -1,6 +1,6 @@
 """Local shading frames and pbrt-v4 local-space trigonometry.
 
-Batched equivalents of ``/root/reference/include/geometric.cuh:119-142``.
+Batched equivalents of reference ``include/geometric.cuh:119-142``.
 All directions are ``(..., 3)``; local space puts the shading normal at +z.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Fresnel terms: exact dielectric and Schlick approximation.
 
-Batched equivalents of ``/root/reference/include/geometric.cuh:145-167``.
+Batched equivalents of reference ``include/geometric.cuh:145-167``.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Batched 3-vector math on ``(..., 3)`` arrays.
 
-TPU-native replacement for the reference's float3 operator set
-(``/root/reference/include/geometric.cuh:90-112``).  All functions are pure,
+Batched replacement for the reference's float3 operator set
+(reference ``include/geometric.cuh:90-112``).  All functions are pure,
 broadcast over leading batch dimensions, and are safe to use inside ``jit`` /
 ``lax.scan`` (no data-dependent shapes, no Python branching on traced values).
 """

@@ -1,6 +1,6 @@
 """Trowbridge-Reitz (GGX) microfacet model with VNDF sampling.
 
-Batched equivalents of ``/root/reference/include/geometric.cuh:173-221``.
+Batched equivalents of reference ``include/geometric.cuh:173-221``.
 All directions are in the local shading frame (+z = normal).
 """
 from __future__ import annotations

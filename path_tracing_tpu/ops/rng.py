@@ -79,9 +79,13 @@ def uniforms_g(key: jax.Array, P: int, n: int, start=0,
     """
     if total is None:
         return uniforms(key, (P,), n)
+    threefry2x32_p = None
     if _windowed_ok(key) and n * total < 2**32:
-        from jax._src.prng import threefry2x32_p
-
+        try:  # private jax API: fall through to the slice path if it moves
+            from jax._src.prng import threefry2x32_p
+        except ImportError:
+            pass
+    if threefry2x32_p is not None:
         kd = jax.random.key_data(key).astype(jnp.uint32)
         lanes = jnp.uint32(start) + jnp.arange(P, dtype=jnp.uint32)
         rows = (jnp.arange(n, dtype=jnp.uint32)

@@ -4,7 +4,7 @@ The reference has no texture machinery at all — its vendored
 tiny_obj_loader.h parses ``map_Kd`` into ``material_t::diffuse_texname``
 (include/tiny_obj_loader.h) but nothing consumes it, and its ``Material``
 (object.h:28-33) is a flat color.  This module activates that latent
-capability the TPU-native way:
+capability as batched array programs:
 
 - every texture image is padded into one device-resident atlas
   ``(NT, TH, TW, 3)`` uploaded once with the scene (no per-frame I/O),
@@ -14,14 +14,8 @@ capability the TPU-native way:
   convention as tinyobj/OpenGL: ``v`` points up, texel centers at
   half-integer coordinates.
 
-Textured scenes KEEP the Pallas nearest-hit kernel (``with_uv`` in-kernel
-UV interpolation in ops/pallas_intersect.py) and since round 2 also the
-fused shade tier: the wavefront inserts ONE batched atlas gather between
-the nearest kernel and ``shade_step_tex_pallas`` (integrators/pt.py),
-which consumes the texel-premodulated base color.  Only the persistent
-megakernel still gates off on ``Scene.has_textures`` — it never leaves
-the kernel between bounces, and per-lane atlas gathers don't exist in
-Mosaic.
+``ops/intersect.find_closest_hit`` interpolates the winning triangle's UVs
+and fetches the atlas for textured scenes (``Scene.has_textures``).
 """
 from __future__ import annotations
 

@@ -1,13 +1,15 @@
-"""ctypes bindings to the native C++ host runtime (csrc/libpt_runtime.so).
+"""ctypes bindings to the native C++ host runtime (csrc/pt_runtime.cc).
 
-The compute path is JAX/XLA/Pallas; the host runtime around it (parsers,
-geometry flattening, the BVH/cluster builder) is native C++, mirroring the
+The compute path is JAX/XLA; the host runtime around it (parsers, geometry
+flattening, the BVH/cluster builder) is native C++, mirroring the
 reference's C++ host layers (SURVEY.md L1/L2/L4).  Pure-Python fallbacks in
 scene/parser.py, scene/obj_loader.py and ops/bvh.py implement the identical
 behavior and are cross-tested against this library.
 
-Build: ``make -C csrc`` (auto-attempted on first import; failures fall back
-to Python silently with ``native_available() == False``).
+Build: ``make -C csrc`` writes ``build/libpt_runtime.so`` (git-ignored).  The
+first use builds it when it is missing or older than its source; when that
+fails (no compiler) ``native_available()`` is False and the Python parsers
+run instead.
 """
 from __future__ import annotations
 
@@ -18,9 +20,11 @@ from typing import Optional
 
 import numpy as np
 
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "csrc")
-_SO = os.path.join(_CSRC, "libpt_runtime.so")
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+_CSRC = os.path.join(_ROOT, "csrc")
+_SRC = os.path.join(_CSRC, "pt_runtime.cc")
+_SO = os.path.join(_ROOT, "build", "libpt_runtime.so")
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
@@ -31,12 +35,14 @@ def _load() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_SO):
+    if (not os.path.exists(_SO)
+            or os.path.getmtime(_SO) < os.path.getmtime(_SRC)):
         try:
             subprocess.run(["make", "-C", _CSRC], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
+                           capture_output=True, timeout=300)
+        except (OSError, subprocess.SubprocessError):
+            if not os.path.exists(_SO):
+                return None
     try:
         lib = ctypes.CDLL(_SO)
     except OSError:
@@ -128,11 +134,7 @@ def parse_scene_native(path: str):
             lib.pt_get_tri_tex(h, tex)
             tex_paths = []
             for i in range(lib.pt_num_textures(h)):
-                buf = ctypes.create_string_buffer(4096)
-                if lib.pt_get_texture_path(h, i, buf, 4096) == 0:
-                    tex_paths.append(os.path.normpath(buf.value.decode()))
-                else:
-                    tex_paths.append(None)
+                tex_paths.append(_texture_path(lib, h, i))
     finally:
         lib.pt_scene_free(h)
 
@@ -182,6 +184,20 @@ def parse_scene_native(path: str):
         out.tri_uv = uv
         out.tri_tex = id_map[tex]  # tex == -1 hits the sentinel last row
     return out
+
+
+def _texture_path(lib, h, i: int, cap: int = 4096) -> Optional[str]:
+    """Texture path ``i`` of a parsed scene; the C++ side returns the
+    capacity it needs when ``cap`` is too small, and the call is retried at
+    that size.  None for a bad index."""
+    buf = ctypes.create_string_buffer(cap)
+    rc = lib.pt_get_texture_path(h, i, buf, cap)
+    if rc > 0:
+        buf = ctypes.create_string_buffer(rc)
+        rc = lib.pt_get_texture_path(h, i, buf, rc)
+    if rc != 0:
+        return None
+    return os.path.normpath(buf.value.decode())
 
 
 def build_clusters_native(tris9: np.ndarray, leaf_size: int = 16):

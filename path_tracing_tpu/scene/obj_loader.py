@@ -106,24 +106,34 @@ def _parse_mtl(path: str) -> Dict[str, MtlDef]:
 
 
 def _decode_texture(path: str) -> "np.ndarray | None":
-    """Image file -> (H, W, 3) float32 LINEAR RGB in [0, 1].  PIL when
-    available (jpg/bmp/...), our dependency-free PNG reader otherwise; None
-    (flat color fallback) when neither can decode it.  Texel bytes are
+    """Image file -> (H, W, 3) float32 LINEAR RGB in [0, 1].  Pillow decodes
+    any format when it is installed; without it PNG files use the built-in
+    reader and other formats raise ImportError.  None (flat color fallback)
+    when the file is missing or cannot be decoded.  Texel bytes are
     gamma-encoded (sRGB-ish); decode with the same 2.2 power the film
     module uses on output so texture energy is linear in the radiance
     math (not double-gamma'd)."""
-    raw = None
+    if not os.path.isfile(path):
+        return None
     try:
         from PIL import Image
-
-        raw = np.asarray(Image.open(path).convert("RGB"), np.float32)
-    except Exception:
-        try:
+    except ImportError:
+        Image = None
+    if Image is None:
+        with open(path, "rb") as f:
+            if f.read(8) != b"\x89PNG\r\n\x1a\n":
+                raise ImportError(
+                    f"texture {path}: only PNG textures load without "
+                    f"Pillow; install Pillow for other image formats")
+    try:
+        if Image is not None:
+            raw = np.asarray(Image.open(path).convert("RGB"), np.float32)
+        else:
             from ..film import read_png
 
             raw = np.asarray(read_png(path), np.float32)
-        except Exception:
-            return None
+    except Exception:  # noqa: BLE001 — a corrupt texture falls back to flat
+        return None
     return (raw / 255.0) ** 2.2
 
 
@@ -215,9 +225,9 @@ def load_any_scene(path: str) -> ParsedScene:
     vt/map_Kd textures) when the library is available — the production
     path, like the reference's C++ host layers (main_cli.cpp:99-141) —
     with this module as the behavioral spec and always-available fallback.
-    ``PT_TPU_NO_NATIVE=1`` forces the Python parsers (A/B + tests)."""
+    ``PT_NO_NATIVE=1`` forces the Python parsers (A/B + tests)."""
     native_out = None
-    if not os.environ.get("PT_TPU_NO_NATIVE"):
+    if not os.environ.get("PT_NO_NATIVE"):
         from ..runtime.native import parse_scene_native
 
         native_out = parse_scene_native(path)

@@ -1,7 +1,7 @@
-"""Scene data model: SoA device arrays (the TPU replacement for the
-reference's ``CudaSphere``/``CudaTriangle``/``CudaLight`` AoS buffers,
-``/root/reference/include/geometric.cuh:21-78`` and the per-integrator
-marshalling globals in ``src/{pt,bdpt,ppm}_cu_helper.cpp``).
+"""Scene data model: SoA device arrays (the replacement for the reference's
+``CudaSphere``/``CudaTriangle``/``CudaLight`` AoS buffers, reference
+``include/geometric.cuh:21-78``, and the per-integrator marshalling globals
+in ``src/{pt,bdpt,ppm}_cu_helper.cpp``).
 
 One scene module shared by every integrator — killing the reference's
 copy-paste triplication (SURVEY.md §1).  Everything is a registered JAX
@@ -115,8 +115,9 @@ class Scene:
     scene_min: jnp.ndarray
     scene_max: jnp.ndarray
     # triangle clusters (flattened median-split BVH, ops/bvh.py): triangles
-    # are stored cluster-contiguous; the Pallas kernels cull whole clusters
-    # per ray tile.  aabb rows are [min3, max3]; ranges are [start, count].
+    # are stored cluster-contiguous, as data for a BVH traversal; the
+    # brute-force intersection does not read them.  aabb rows are
+    # [min3, max3]; ranges are [start, count].
     tri_cluster_aabb: jnp.ndarray   # (M, 6)
     tri_cluster_range: jnp.ndarray  # (M, 2) int32
     # textures (ops/texture.py; OBJ map_Kd — the capability the reference's
@@ -152,17 +153,15 @@ class Scene:
 
     @property
     def has_textures(self) -> bool:
-        """Static (trace-time) — textured scenes take the XLA intersection
-        path, where batched texture gathers are natural; the Pallas kernels
-        resolve materials in-register and cannot do per-lane atlas fetches."""
+        """Static (trace-time): the nearest-hit step adds the UV
+        interpolation and atlas fetch only for textured scenes."""
         return self.tex_atlas.shape[0] > 0 and self.tri_tex.shape[0] > 0
 
     @property
     def has_legacy_ks(self) -> bool:
-        """Static (trace-time) — scenes carrying legacy Ks/refract materials
-        take the XLA RGB shadow-transmittance path (ops/intersect.py
-        ``shadow_factor``); the Pallas blocker/megakernel tiers implement the
-        reference's reachable binary semantics only and gate off."""
+        """Static (trace-time): scenes carrying legacy Ks/refract materials
+        take the RGB shadow-transmittance path (ops/intersect.py
+        ``shadow_factor``); all others the binary any-blocker test."""
         return self.sph_ks.shape[0] > 0 or self.tri_ks.shape[0] > 0
 
     @property
@@ -194,6 +193,10 @@ class Camera:
     dy: jnp.ndarray
 
 
+# triangles per cluster leaf: a fixed size, not tuned for any device
+CLUSTER_LEAF_SIZE = 64
+
+
 def scene_from_numpy(
     sph_center, sph_radius, sph_mtl, tri_v0, tri_v1, tri_v2, tri_mtl,
     light_pos, light_dir, light_illum, light_cutoff, light_is_parallel,
@@ -205,9 +208,9 @@ def scene_from_numpy(
     the way the marshalling helpers do (bdpt_cu_helper.cpp:29-53): union of
     sphere bounds and triangle vertices (light balls excluded).
 
-    Triangles are reordered into spatial clusters (ops/bvh.py) so the TPU
-    intersection kernels can cull whole clusters per ray tile; tie-breaking
-    between exactly coincident triangles may differ from file order."""
+    Triangles are reordered into spatial clusters (ops/bvh.py) once a scene
+    has more than ``cluster_leaf_size`` of them; tie-breaking between
+    exactly coincident triangles may then differ from file order."""
     f32 = np.float32
     sph_center = np.asarray(sph_center, f32).reshape(-1, 3)
     sph_radius = np.asarray(sph_radius, f32).reshape(-1)
@@ -218,23 +221,7 @@ def scene_from_numpy(
     # cluster + reorder triangles (single whole-scene cluster for tiny sets)
     nt_total = tri_v0.shape[0]
     if cluster_leaf_size is None:
-        # bigger leaves win for HBM-streamed meshes (fewer AABB tests per
-        # ray tile; the DMA chunks amortize): 256 measured ~30% faster than
-        # 64 at 249k tris, while 64 stays best for VMEM-resident tables.
-        # Small text scenes (input.txt: 36 wall triangles) get leaf 8:
-        # with leaf 64 they collapsed to ONE all-covering cluster, so every
-        # shadow/nearest sweep — including the BDPT connection kernel's
-        # per-light-vertex visibility, its dominant cost — tested every
-        # triangle; a handful of slab-gated clusters lets rays between two
-        # interior points skip the walls they can't cross
-        from ..ops.pallas_intersect import max_vmem_tris
-
-        import os
-
-        cluster_leaf_size = int(os.environ.get(
-            "PT_TPU_LEAF_SIZE",
-            8 if nt_total <= 256
-            else (64 if nt_total <= max_vmem_tris() else 256)))
+        cluster_leaf_size = CLUSTER_LEAF_SIZE
     tri_uv = (np.asarray(tri_uv, f32).reshape(-1, 6) if tri_uv is not None
               else np.zeros((nt_total, 6), f32))
     tri_tex = (np.asarray(tri_tex, np.int32).reshape(-1)

@@ -21,10 +21,11 @@ def main() -> None:
 
     from path_tracing_tpu.config import RenderConfig
     from path_tracing_tpu.integrators.pt import render_pt
+    from path_tracing_tpu.scene import scene_path
     from path_tracing_tpu.scene.camera import make_camera
     from path_tracing_tpu.scene.parser import load_scene
 
-    p = load_scene("/root/reference/mis_test.txt")
+    p = load_scene(scene_path("mis.txt"))
     scene = p.to_device()
     W = H = 128
     cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H)

@@ -1,6 +1,6 @@
 """Literal NumPy transcription of the reference PPM estimator.
 
-Source semantics: ``/root/reference/src/ppm_cu.cu`` — ``ppm_eye_trace``
+Source semantics: reference ``src/ppm_cu.cu`` — ``ppm_eye_trace``
 (:64-150), ``ppm_photon_trace`` (:156-295), ``ppm_resolve_image``
 (:300-322) and the wrapper's photon count (``num_lights * spl``, :353).
 The one deliberate difference mirrors the framework's documented choice

@@ -8,10 +8,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from path_tracing_tpu.scene import scene_path
 from path_tracing_tpu.film import (AccumState, load_checkpoint, read_png,
                                    save_checkpoint, tonemap_u8, write_png)
 
-INPUT_TXT = "/root/reference/input.txt"
+INPUT_TXT = scene_path("cornell.txt")
 
 
 def test_png_roundtrip(tmp_path):
@@ -21,12 +22,6 @@ def test_png_roundtrip(tmp_path):
     write_png(p, img)
     back = read_png(p)
     np.testing.assert_array_equal(back, img)
-
-
-def test_read_reference_golden_png():
-    g = read_png("/root/reference/output.png")
-    assert g.shape == (200, 200, 3)
-    assert 60 < g.mean() < 130  # sanity: a real image, not garbage
 
 
 def test_tonemap_matches_reference_pipeline():
@@ -55,12 +50,12 @@ def test_accum_state_and_checkpoint(tmp_path):
 def test_cli_smoke(tmp_path, mode):
     """End-to-end CLI subprocess on the CPU backend."""
     out = str(tmp_path / "out.png")
-    env = dict(os.environ, JAX_PLATFORM_NAME="cpu", JAX_PLATFORMS="cpu",
-               PT_TPU_CACHE=os.path.expanduser("~/.cache/jax_pt_tpu"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-m", "path_tracing_tpu.cli", "--input", INPUT_TXT,
          "--mode", mode, "--spp", "1", "--width", "16", "--height", "16",
-         "--eye-depth", "2", "--output", out, "--seed", "1"],
+         "--eye-depth", "2", "--output", out, "--seed", "1",
+         "--device", "cpu"],
         capture_output=True, text=True, timeout=900, env=env,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert r.returncode == 0, r.stderr[-2000:]
@@ -74,13 +69,12 @@ def test_cli_live_progressive(tmp_path):
     headless stand-in for the reference GUI's live window."""
     out = str(tmp_path / "out.png")
     live = str(tmp_path / "live_{i}.png")
-    env = dict(os.environ, JAX_PLATFORM_NAME="cpu", JAX_PLATFORMS="cpu",
-               PT_TPU_CACHE=os.path.expanduser("~/.cache/jax_pt_tpu"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-m", "path_tracing_tpu.cli", "--input", INPUT_TXT,
          "--mode", "pt", "--spp", "1", "--width", "16", "--height", "16",
          "--eye-depth", "2", "--output", out, "--seed", "1",
-         "--iters", "2", "--live", live],
+         "--iters", "2", "--live", live, "--device", "cpu"],
         capture_output=True, text=True, timeout=900, env=env,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert r.returncode == 0, r.stderr[-2000:]
@@ -109,13 +103,12 @@ def test_ansi_preview_shape_and_colors():
 def test_cli_live_term(tmp_path):
     """--live-term redraws the accumulation as ANSI half-blocks."""
     out = str(tmp_path / "out.png")
-    env = dict(os.environ, JAX_PLATFORM_NAME="cpu", JAX_PLATFORMS="cpu",
-               PT_TPU_CACHE=os.path.expanduser("~/.cache/jax_pt_tpu"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-m", "path_tracing_tpu.cli", "--input", INPUT_TXT,
          "--mode", "pt", "--spp", "1", "--width", "16", "--height", "16",
          "--eye-depth", "2", "--output", out, "--seed", "1",
-         "--iters", "2", "--live-term", "8"],
+         "--iters", "2", "--live-term", "8", "--device", "cpu"],
         capture_output=True, text=True, timeout=900, env=env,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert r.returncode == 0, r.stderr[-2000:]
@@ -133,11 +126,9 @@ def test_pt_fixed_mis_mode_differs_and_adds_energy():
     from path_tracing_tpu.scene.camera import make_camera
     from path_tracing_tpu.scene.parser import load_scene
 
-    # NOTE: not mis_test.txt — its lights say "cutoff 360" and
-    # cos(radians(360)) ~ 1, so the reference's cone gates zero out NEE and
-    # depth>0 emission there entirely (we reproduce that, too).  input.txt's
-    # 180-degree light passes the gates and exposes the strategy-A term.
-    p = load_scene("/root/reference/input.txt")
+    # the Cornell stand-in's 180-degree light passes the cone gates and
+    # exposes the strategy-A term
+    p = load_scene(scene_path("cornell.txt"))
     scene = p.to_device()
     W = H = 16
     cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H)
@@ -174,13 +165,12 @@ def test_cli_debug_nan_and_profile(tmp_path):
     """--debug-nan turns on jax_debug_nans; --profile writes a trace dir."""
     out = str(tmp_path / "out.png")
     prof = str(tmp_path / "trace")
-    env = dict(os.environ, JAX_PLATFORM_NAME="cpu", JAX_PLATFORMS="cpu",
-               PT_TPU_CACHE=os.path.expanduser("~/.cache/jax_pt_tpu"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     r = subprocess.run(
         [sys.executable, "-m", "path_tracing_tpu.cli", "--input", INPUT_TXT,
          "--mode", "pt", "--spp", "1", "--width", "16", "--height", "16",
          "--eye-depth", "2", "--output", out, "--seed", "1",
-         "--debug-nan", "--profile", prof],
+         "--debug-nan", "--profile", prof, "--device", "cpu"],
         capture_output=True, text=True, timeout=900, env=env,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     assert r.returncode == 0, r.stderr[-2000:]
@@ -217,7 +207,8 @@ def test_cli_retry_does_not_double_count(tmp_path, monkeypatch, capsys):
         "--input", INPUT_TXT, "--mode", "pt", "--spp", "1",
         "--width", "16", "--height", "16", "--eye-depth", "2",
         "--output", out, "--seed", "1", "--iters", "2",
-        "--live", live, "--retries", "1", "--checkpoint", ck])
+        "--live", live, "--retries", "1", "--checkpoint", ck,
+        "--device", "cpu"])
     assert rc == 0
     assert fails["n"] == 1  # the transient failure actually happened
     st, meta = load_checkpoint(ck)
@@ -295,7 +286,7 @@ def test_cli_live_http(tmp_path):
             "--input", INPUT_TXT, "--mode", "pt", "--spp", "1",
             "--width", "16", "--height", "16", "--eye-depth", "2",
             "--output", out, "--seed", "1", "--iters", "2",
-            "--live-http", "0"])
+            "--live-http", "0", "--device", "cpu"])
     finally:
         lh.LiveServer.update = orig_update
     assert rc == 0

@@ -1,56 +1,22 @@
-"""Golden-image parity vs the reference's committed render.
+"""Estimator-drift tripwire for the headline scene.
 
-The full 200x200 spp8 spl8 BDPT render takes minutes of XLA compile on this
-1-core CPU CI box, so the check is opt-in: set PT_TPU_GOLDEN=1 (it runs in
-seconds of device time on a real chip).  Last measured on TPU v5:
-8-bit RMSE 12.87 vs /root/reference/output.png (means 89.7 vs 90.2) —
-i.e. the golden output.png is a BDPT render and we reproduce it.
-Re-run on CPU (30 min) after the dist-scaled connection-MIS parity fix:
-still passes; the runbook re-measures the exact RMSE on hardware.
+``test_mis_scene_estimator_pinned`` pins a fixed-seed CPU render of the MIS
+stand-in scene against a committed fixture.
 """
 import os
 
 import numpy as np
-import pytest
+
+from path_tracing_tpu.scene import scene_path
 
 _FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 
 
-@pytest.mark.skipif(not os.environ.get("PT_TPU_GOLDEN"),
-                    reason="set PT_TPU_GOLDEN=1 to run the full-size parity "
-                           "render (slow to compile on CPU)")
-def test_bdpt_matches_reference_golden():
-    import jax
-
-    from path_tracing_tpu.config import RenderConfig
-    from path_tracing_tpu.film import read_png, tonemap_u8
-    from path_tracing_tpu.integrators.bdpt import render_bdpt
-    from path_tracing_tpu.scene.camera import make_camera
-    from path_tracing_tpu.scene.parser import load_scene
-
-    p = load_scene("/root/reference/input.txt")
-    scene = p.to_device()
-    W = H = 200
-    cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H)
-    cfg = RenderConfig(width=W, height=H, delta_budget=4)
-    img = np.asarray(render_bdpt(scene, cam, W, H, 8, 8, cfg,
-                                 jax.random.PRNGKey(0)))
-    u8 = tonemap_u8(img, W, H)
-    g = read_png("/root/reference/output.png")
-    rmse = float(np.sqrt(np.mean(
-        (g.astype(np.float32) - u8.astype(np.float32)) ** 2)))
-    # hardware values are stable across rounds (13.96 r3/r4, means within
-    # 0.5): pin tight enough that a 15% quality regression fails (the old
-    # 20/10 bounds would have passed a 40% one — VERDICT r4 weak 5)
-    assert rmse < 16.0, rmse
-    assert abs(float(u8.mean()) - float(g.mean())) < 5.0
-
-
 def test_mis_scene_estimator_pinned():
-    """Fixed-seed 128^2 PT render of mis_test.txt vs a committed fixture —
-    an estimator-drift tripwire for the HEADLINE scene (VERDICT r4 item 8:
-    the Cornell golden can't catch MIS-weight regressions in the scene the
-    benchmark actually runs).  The pin is 8-bit RMSE < 1.0: immune to
+    """Fixed-seed 128^2 PT render of the MIS stand-in scene vs a committed
+    fixture — an estimator-drift tripwire for the HEADLINE scene (a Cornell
+    check can't catch MIS-weight regressions in the scene the benchmark
+    actually runs).  The pin is 8-bit RMSE < 1.0: immune to
     ULP-level codegen jitter across jax versions, loud on any real
     estimator change.  Regenerate with
     ``python tests/gen_mis_fixture.py`` after an INTENDED change."""
@@ -62,16 +28,9 @@ def test_mis_scene_estimator_pinned():
     from path_tracing_tpu.scene.camera import make_camera
     from path_tracing_tpu.scene.parser import load_scene
 
-    import jax
-
-    if jax.default_backend() != "cpu":
-        pytest.skip("fixture pins the deterministic CPU/XLA tier; the TPU "
-                    "megakernel tier draws a different (on-core) PRNG "
-                    "stream — its quality is pinned by test_golden + the "
-                    "hardware golden sweep row instead")
     fixture = os.path.join(_FIX, "mis_pt_128.npy")
     assert os.path.exists(fixture), "run tests/gen_mis_fixture.py"
-    p = load_scene("/root/reference/mis_test.txt")
+    p = load_scene(scene_path("mis.txt"))
     scene = p.to_device()
     W = H = 128
     cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H)

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from path_tracing_tpu.scene import scene_path
 from path_tracing_tpu.config import RenderConfig
 from path_tracing_tpu.integrators.bdpt import render_bdpt
 from path_tracing_tpu.integrators.pt import render_pt
@@ -20,7 +21,7 @@ from path_tracing_tpu.ops.intersect import (shadow_factor, transmittance,
 from path_tracing_tpu.scene.camera import make_camera
 from path_tracing_tpu.scene.parser import load_scene, parse_scene_text
 
-INPUT_TXT = "/root/reference/input.txt"
+INPUT_TXT = scene_path("cornell.txt")
 
 OCCLUDER_SCENE = """
 M 0.8 0.8 0.8 1 0 0

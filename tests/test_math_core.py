@@ -147,17 +147,3 @@ def test_smith_g_bounds_and_alpha_floor():
     g, a = f()
     assert 0.0 < float(g[0]) <= 1.0
     np.testing.assert_allclose(np.asarray(a), [1e-6, 0.25, 1.0], rtol=1e-5)
-
-
-def test_mega_rows_shape_aware_default(monkeypatch):
-    """PT_TPU_MEGA_ROWS overrides; otherwise the tile height is 160 only at
-    >=1.5M lanes (the measured 1080p winner: +2% there, -14% at 512^2)."""
-    from path_tracing_tpu.ops.pallas_intersect import mega_rows
-
-    monkeypatch.delenv("PT_TPU_MEGA_ROWS", raising=False)
-    assert mega_rows() == 128
-    assert mega_rows(512 * 512) == 128
-    assert mega_rows(1920 * 1080) == 160
-    assert mega_rows(1920 * 1080 // 8) == 128  # per-shard slices stay 128
-    monkeypatch.setenv("PT_TPU_MEGA_ROWS", "32")
-    assert mega_rows(1920 * 1080) == 32

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from path_tracing_tpu.scene import scene_path
 from path_tracing_tpu.config import RenderConfig
 from path_tracing_tpu.integrators.ppm import (HitPoints, PhotonEvents,
                                               gather_flux, hash_cell,
@@ -14,7 +15,7 @@ from path_tracing_tpu.scene.camera import make_camera
 from path_tracing_tpu.scene.parser import load_scene
 from path_tracing_tpu.scene.types import Material
 
-INPUT_TXT = "/root/reference/input.txt"
+INPUT_TXT = scene_path("cornell.txt")
 W = H = 16
 
 

@@ -1,10 +1,10 @@
 """Quantitative PPM parity vs an independent NumPy oracle.
 
-The PPM pipeline had only A/B (Pallas-vs-XLA) and cross-integrator
-statistical checks — the same structure that was blind to the round-1 PT
-NEE bug.  This test renders a small diffuse box with the framework's
+Backend A/B comparisons and cross-integrator statistical checks share the
+integrator logic, so they are blind to an estimator bug like a missing NEE
+factor.  This test renders a small diffuse box with the framework's
 ``render_ppm`` and with ``tests/ppm_numpy_oracle.py`` — a literal NumPy
-transcription of ``/root/reference/src/ppm_cu.cu`` — and pins the image
+transcription of reference ``src/ppm_cu.cu`` — and pins the image
 mean and per-pixel agreement.  A missing factor anywhere in the photon
 flux chain (illum*Nl/spl emission, bsdf*throughput deposit, pi*r^2
 resolve) shifts the mean far outside the tolerance.

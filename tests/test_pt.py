@@ -4,12 +4,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from path_tracing_tpu.scene import scene_path
 from path_tracing_tpu.config import RenderConfig
 from path_tracing_tpu.integrators.pt import render_pt
 from path_tracing_tpu.scene.camera import make_camera
 from path_tracing_tpu.scene.parser import load_scene
 
-INPUT_TXT = "/root/reference/input.txt"
+INPUT_TXT = scene_path("cornell.txt")
 W = H = 32
 
 

@@ -1,10 +1,9 @@
 """Quantitative PT parity vs an independent NumPy oracle.
 
-Round-1 verdict: the PT suite was smoke-level and structurally blind to a
-missing path-throughput factor in NEE (both backends shared the bug, so
-Pallas-vs-XLA A/B tests passed).  This test renders a small diffuse box
+Smoke-level PT tests are structurally blind to a missing path-throughput
+factor in NEE (backend A/B tests share the bug and pass).  This test renders a small diffuse box
 with the framework's PT and with ``tests/pt_numpy_oracle.py`` — a literal
-NumPy transcription of ``/root/reference/src/pt_cu.cu`` — and pins the
+NumPy transcription of reference ``src/pt_cu.cu`` — and pins the
 image mean and per-pixel RMSE.  The pre-fix code overshoots the oracle mean
 by >20% here; tolerance is a few percent of Monte-Carlo noise.
 """

@@ -5,11 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from path_tracing_tpu.scene import scene_path
 from path_tracing_tpu.scene.camera import make_camera, primary_ray_dirs
 from path_tracing_tpu.scene.parser import load_scene, parse_scene_text
 
-INPUT_TXT = "/root/reference/input.txt"
-MIS_TXT = "/root/reference/mis_test.txt"
+INPUT_TXT = scene_path("cornell.txt")
+MIS_TXT = scene_path("mis.txt")
 
 
 def test_parse_input_txt():

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from path_tracing_tpu.scene import scene_path
 from path_tracing_tpu.config import RenderConfig
 from path_tracing_tpu.parallel.shard import (make_mesh, render_bdpt_sharded,
                                              render_ppm_sharded,
@@ -25,7 +26,7 @@ W = H = 16
 @pytest.fixture(scope="module")
 def setup():
     assert len(jax.devices()) >= 8, "conftest must provide 8 virtual devices"
-    p = load_scene("/root/reference/input.txt")
+    p = load_scene(scene_path("cornell.txt"))
     scene = p.to_device()
     cam = make_camera(p.eye, p.look_at, p.view_up, p.fov, W, H)
     cfg = RenderConfig(width=W, height=H, eye_depth=2, light_depth=2,
@@ -68,36 +69,11 @@ def test_bdpt_sharded_bit_exact_vs_single_device(setup):
     np.testing.assert_allclose(img, ref, rtol=1e-3, atol=1e-4)
 
 
-def test_hybrid_mesh_matches_flat(setup):
-    """A ("dcn", "dp") 2x4 hybrid mesh must render the SAME image as the
-    flat 8-device mesh: per-shard RNG folds use the mesh-linear index and
-    all_gather(tiled) concatenates in the same order, so PT/BDPT are exact;
-    PPM's flux psum may reduce hierarchically (summation-order jitter)."""
-    scene, cam, cfg, mesh = setup
-    hybrid = make_mesh(8, dcn=2)
-    assert hybrid.axis_names == ("dcn", "dp") and hybrid.devices.shape == (2, 4)
-
-    key = jax.random.PRNGKey(0)
-    a = np.asarray(render_pt_sharded(scene, cam, W, H, 16, cfg, key, mesh))
-    b = np.asarray(render_pt_sharded(scene, cam, W, H, 16, cfg, key, hybrid))
-    np.testing.assert_array_equal(a, b)
-
-    a = np.asarray(render_bdpt_sharded(scene, cam, W, H, 2, 8, cfg, key,
-                                       mesh, chunk=16))
-    b = np.asarray(render_bdpt_sharded(scene, cam, W, H, 2, 8, cfg, key,
-                                       hybrid, chunk=16))
-    np.testing.assert_array_equal(a, b)
-
-    a = np.asarray(render_ppm_sharded(scene, cam, W, H, 512, cfg, key, mesh))
-    b = np.asarray(render_ppm_sharded(scene, cam, W, H, 512, cfg, key, hybrid))
-    np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
-
-
 def test_sharded_light_assignment_matches_global_sequence(setup):
     """Shards must sample the GLOBAL light-assignment sequence
     (global path index % num_lights), not each restart it locally.
 
-    With 8 shards of 1 path each on the 4-light input.txt, the old
+    With 8 shards of 1 path each on the 4-light Cornell scene, the old
     per-shard ``arange(P_local) % nl`` gave every shard light 0; the
     global form covers all four lights.  Vertex-0 ``emit_dir`` is a
     deterministic function of the assigned light, so the check is exact
@@ -145,7 +121,7 @@ def test_sharded_padding_lanes_are_dead(setup):
     # pad lanes (3rd/4th of the 4) start dead -> no valid deposit events
     # (events flatten iter-major: (iters, P) -> (E,))
     valid = np.asarray(ev.valid).reshape(-1, 4)
-    assert valid[:, :2].any(), "real lanes should deposit on input.txt"
+    assert valid[:, :2].any(), "real lanes should deposit in the box"
     assert not valid[:, 2:].any()
 
 

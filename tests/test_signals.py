@@ -9,6 +9,8 @@ import time
 
 import pytest
 
+from path_tracing_tpu.scene import scene_path
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -16,15 +18,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
                     reason="platform without SIGUSR1")
 def test_sigusr1_snapshot_and_sigusr2_stop(tmp_path):
     out = str(tmp_path / "img.png")
-    env = dict(os.environ, JAX_PLATFORM_NAME="cpu", JAX_PLATFORMS="cpu",
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
     p = subprocess.Popen(
         [sys.executable, "-u", "-m", "path_tracing_tpu.cli",
-         "--input", "/root/reference/input.txt", "--mode", "pt",
+         "--input", scene_path("cornell.txt"), "--mode", "pt",
          "--spp", "1", "--width", "16", "--height", "16",
          "--eye-depth", "2", "--output", out, "--seed", "1",
-         "--iters", "500"],
+         "--iters", "500", "--device", "cpu"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, text=True)
     try:
         deadline = time.time() + 600
